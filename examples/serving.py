@@ -3,9 +3,9 @@
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/serving.py
 
-On a TPU host, drop the env vars — the mesh spans the real chips; on a
-multi-host pod, call parallel.multihost.initialize() first and the same
-code shards globally.
+On a GPU host, drop the env vars — the mesh spans the real cards; across
+hosts, call parallel.multihost.initialize() first and the same code shards
+globally.
 """
 
 import os
@@ -59,7 +59,7 @@ def progressive_serving() -> None:
     """Progressive streams: one image is a set of bit-serial scan chains
     and cannot fill the host's cores alone, so the serving axis is ACROSS
     images — host_decode_batch runs several host stages concurrently
-    (docs/PERF.md round 5: 2.9x aggregate on a 4-core host)."""
+    (PERF.md, progressive serving)."""
     import io
 
     from PIL import Image

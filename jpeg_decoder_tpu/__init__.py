@@ -1,16 +1,16 @@
-"""jpeg_decoder_tpu — a TPU-native JPEG engine (JAX/XLA/Pallas + C++ runtime).
+"""jpeg_decoder_tpu — a JPEG engine for accelerators (JAX/XLA + C++ runtime).
 
 A from-scratch re-design of the capabilities of the reference C decoder
-(Tommy-Sand/jpeg-decoder, mounted at /root/reference) for TPU hardware:
+(Tommy-Sand/jpeg-decoder) for accelerator hardware:
 
   * restart-segment-parallel entropy decode (native C++ runtime or NumPy),
-  * fused dequant + dezigzag + 8x8 IDCT as Pallas/XLA device kernels over
-    HBM-resident coefficient planes,
+  * fused dequant + dezigzag + 8x8 IDCT as XLA device programs over
+    device-resident coefficient planes,
   * fused chroma-upsample + YCbCr->RGB color kernel,
   * a working encoder (FDCT + quantize + Huffman pack) — the reference's is
     a non-functional stub,
   * correct progressive decode — the reference's is broken,
-  * batch/stripe sharding over jax.sharding Meshes for multi-chip scale-out.
+  * batch/stripe sharding over jax.sharding Meshes for multi-device scale-out.
 
 Public API:
     decode(data)            -> DecodedImage          (full pipeline)

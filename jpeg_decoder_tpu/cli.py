@@ -4,7 +4,7 @@ The reference's CLI is `jpeg_decoder <file>` -> SDL2 window
 (/root/reference/src/jpeg_decoder.c:29-141) and a non-compiling encoder
 driver (jpeg_encoder.c). This CLI covers both, file-based (PNG/PPM/NPY out)
 with an optional interactive viewer (--show; uses PIL, SDL-free — this
-engine targets headless TPU hosts).
+engine targets headless accelerator hosts).
 
     python -m jpeg_decoder_tpu.cli decode in.jpg out.png [--backend ...]
     python -m jpeg_decoder_tpu.cli encode in.png out.jpg [--quality 85]
@@ -124,7 +124,7 @@ def cmd_decode_batch(args) -> int:
     (models/decoder.host_decode_batch); the pixel stage finishes each
     image as its planes arrive, in input order. This is the serving shape
     for progressive streams, whose bit-serial scan chains cannot fill the
-    cores one image at a time (docs/PERF.md round 5)."""
+    cores one image at a time (PERF.md, progressive serving)."""
     cfg = _decode_cfg(args)
     from .models.decoder import PlanePool, _pixel_stage, host_decode_batch
 
@@ -299,6 +299,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from .utils import compile_cache
+
+    compile_cache.enable()
     return args.fn(args)
 
 

@@ -18,7 +18,7 @@ IEEE binary32, `double` ops IEEE binary64, no excess precision):
                         clamp-to-256 wrap quirk.
 
 They are vectorized over all blocks/pixels at once, so they double as a fast
-"golden" CPU path and as the test oracle for the Pallas kernels.
+"golden" CPU path and as the test oracle for the device kernels.
 """
 
 from __future__ import annotations

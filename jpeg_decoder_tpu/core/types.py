@@ -6,7 +6,7 @@ The reference keeps this state in C structs scattered across headers
 `huff_table.h:9-14`, the progressive coefficient `Buffer` `decode.c:20-25`).
 Here the same information is immutable dataclasses plus NumPy arrays, and the
 central intermediate representation is explicit: per-component zigzag-order
-coefficient planes of shape [blocks_y, blocks_x, 64] (int16, COEF_DTYPE), the TPU-friendly
+coefficient planes of shape [blocks_y, blocks_x, 64] (int16, COEF_DTYPE), the device-friendly
 generalization of the reference's progressive Buffer that we use for *all*
 decode paths (SURVEY.md §7 architecture principle).
 """

@@ -2,7 +2,7 @@
 
 Reference parity: the marker dispatch switch in the reference decoder
 (`/root/reference/src/decode.c:160-409`) recognizes exactly the markers below.
-This module is the single source of truth for marker codes in the TPU build.
+This module is the single source of truth for marker codes in this engine.
 """
 
 from __future__ import annotations

@@ -286,12 +286,6 @@ def _entropy_decode(
         with metrics.timer("entropy_device"):
             return entropy_device.entropy_decode(structure, cfg, planes)
 
-    if backend == EntropyBackend.PALLAS:
-        from ..ops import entropy_pallas
-
-        with metrics.timer("entropy_pallas"):
-            return entropy_pallas.entropy_decode(structure, cfg, planes)
-
     from ..core.driver import run_scans
 
     if planes is None:
@@ -704,9 +698,8 @@ def decode_file(path, cfg: DecodeConfig | None = None) -> DecodedImage:
     (parser, prescan, native entropy decode) consumes the mapping
     zero-copy, so bytes page in lazily and the OS can evict them under
     pressure: the compressed stream stops counting against the process
-    (measured ~ file-size RSS saving on the 0.5-gigapixel artifact,
-    benchmarks/GIGAPIXEL.json, where the decode working set itself
-    dominates peak RSS)."""
+    (the RSS saving is about the file size; on gigapixel streams the decode
+    working set itself dominates peak RSS)."""
     try:
         mm = np.memmap(path, dtype=np.uint8, mode="r")
     except (ValueError, OSError) as e:

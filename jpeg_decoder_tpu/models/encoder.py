@@ -6,7 +6,7 @@ does not have (its encoder neither compiles nor produces a stream,
 the decoder in reverse:
 
   device:  pad -> RGB->YCbCr -> box subsample -> level shift ->
-           FDCT+quantize as one MXU matmul per component      (ops/fdct.py)
+           FDCT+quantize as one matmul per component          (ops/fdct.py)
   host:    MCU-interleaved run/size Huffman pack, optional restart
            markers, optional two-pass optimized tables   (core/entropy_encode)
   host:    marker emission                                     (io/writer.py)

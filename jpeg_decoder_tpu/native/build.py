@@ -4,14 +4,16 @@ The reference ships a broken makefile (missing maxofthree.asm,
 /root/reference/makefile:10,52-53) and a vestigial CMakeLists; here the
 native build is a single translation unit compiled straight from Python so
 `pip install`-style environments need no separate build step. The compiled
-library is cached next to the source, keyed by a content hash, and rebuilt
-automatically whenever the source changes.
+library is cached next to the source, keyed by a hash of the sources, the
+flags and the host CPU target, and rebuilt automatically whenever any of
+them changes.
 
 CLI: python -m jpeg_decoder_tpu.native.build [--force]
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import subprocess
@@ -45,13 +47,42 @@ def _pair_shift_flag() -> str:
     return f"-DJDT_PAIR_SHIFT={64 - PAIR_BITS}"
 
 
+def _march_flags() -> list[str]:
+    return [] if os.environ.get("JPEGTPU_PORTABLE_BUILD") else ["-march=native"]
+
+
+@functools.lru_cache(maxsize=None)
+def _cpu_target() -> str:
+    """What -march=native resolves to on this host: the compiler's own
+    list of enabled target options. A library built for one host's CPU can
+    fault with an illegal instruction on another, so this is part of the
+    cache key. Falls back to /proc/cpuinfo's model and flags when the
+    compiler cannot be asked."""
+    try:
+        r = subprocess.run(
+            ["g++", *_march_flags(), "-Q", "--help=target"],
+            capture_output=True, text=True, timeout=60,
+        )
+        if r.returncode == 0:
+            return r.stdout
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return ""
+    keep = [ln for ln in lines if ln.startswith(("model name", "flags"))]
+    return "\n".join(sorted(set(keep)))
+
+
 def _source_hash() -> str:
     h = hashlib.sha256()
     for name in SOURCES:
         p = SRC_DIR / name
         if p.exists():
             h.update(p.read_bytes())
-    h.update(" ".join([*CXX_FLAGS, _pair_shift_flag()]).encode())
+    h.update(" ".join([*CXX_FLAGS, _pair_shift_flag(), *_march_flags()]).encode())
+    h.update(_cpu_target().encode())
     return h.hexdigest()[:16]
 
 
@@ -69,7 +100,7 @@ def build(force: bool = False) -> Path | None:
         log.error("no native sources found under %s", SRC_DIR)
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    march = [] if os.environ.get("JPEGTPU_PORTABLE_BUILD") else ["-march=native"]
+    march = _march_flags()
     # Compile to a process-unique temp path and atomically rename: multiple
     # processes may build concurrently (multi-host serving), and a reader
     # must never dlopen a half-written .so.

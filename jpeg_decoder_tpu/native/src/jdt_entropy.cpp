@@ -821,7 +821,7 @@ struct RegStream {
   // retired in round 4: quiet-machine interleaved A/B measured it a WASH
   // at 4 threads and consistently 3-5% slower at 1 thread, while its
   // guard compare taxed the buffered path too. The unstuff copy doubles
-  // as L1 cache staging; see docs/PERF.md.)
+  // as L1 cache staging; see PERF.md.)
   int64_t seg = -1, mcu = 0, mcu_hi = 0;
   int32_t unit = 0, scomp = 0;
   int32_t preds[4];
@@ -1238,7 +1238,7 @@ ScanContext build_context(const uint8_t* data, const int64_t* seg_bounds,
 // is pure pollution of the L2 the window loads live in — and a regular
 // store additionally pays a write-allocate READ of each destination line
 // first. Streaming stores skip both; on the bandwidth-poor serving host
-// that traffic is the measured DRI-vs-no-DRI gap (docs/PERF.md, r4).
+// that traffic is the measured DRI-vs-no-DRI gap (PERF.md, host findings).
 // The destination stride is 128 B, so alignment is uniform per buffer:
 // one check, then full-cache-line WC writes. Callers that need the data
 // visible to OTHER threads must fence once after their loop (NT stores
@@ -2391,7 +2391,7 @@ int32_t jdt_decode_sequential(const uint8_t* data, const int64_t* seg_bounds,
   if (n_segs >= 2 && n_units <= kRegMaxUnits) {
     // K=4 streams per worker: the sweep plateau, confirmed three times
     // (K=2/3/4/5/6/8 = 41.8/36.5/34.6/34.5/35.9/36.3 ms 1-thread, and a
-    // K=4-vs-5 tie at 4 threads on a quiet machine — docs/PERF.md). The
+    // K=4-vs-5 tie at 4 threads on a quiet machine — PERF.md). The
     // JDT_REG_K re-sweep hook was retired in round 4; re-instantiate
     // reg_run<K> here to re-measure on new hardware.
     return reg_run<4>(c, n_threads, err_out);

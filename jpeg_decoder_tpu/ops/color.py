@@ -4,12 +4,12 @@ Replaces the reference's per-pixel host loops (`y_rgb` / `ycbcr_rgb` /
 `yccb_rgb`, `/root/reference/src/colour_conversion.c:5-162`) with fused
 array programs: a static-index gather for the nearest-neighbor chroma
 upsample (the reference's float32-ratio index rule, colour_conversion.c:62-69)
-followed by the BT.601 / YCCK arithmetic on the VPU.
+followed by the BT.601 / YCCK arithmetic, fused elementwise.
 
 Numeric contracts mirror ops/idct.py:
   * exact=True  — each C statement "f64 expression stored to f32"
-                  (colour_conversion.c:71-74, :137-141) emulated with
-                  double-float (ops/df32.py), then the compiled binary's
+                  (colour_conversion.c:71-74, :137-141) evaluated in native
+                  float64 (ops/f64.py), then the compiled binary's
                   store behavior: truncate toward zero, saturate to [0,255]
                   (see core/numerics._store_rgb_reference for why saturation,
                   not the source's clamp-to-256 wrap, is the parity target).
@@ -29,7 +29,7 @@ import jax.numpy as jnp
 
 from ..core.numerics import _nn_index_f32
 from ..utils.config import Quirks
-from . import df32
+from . import f64
 
 F32 = jnp.float32
 
@@ -107,24 +107,6 @@ def _store_rgb(r, g, b, quirks: Quirks):
     return jnp.stack(chans, axis=-1)
 
 
-def _ycbcr_channels_exact(y8, cb8, cr8):
-    """R/G/B f32 with the C's per-statement rounding. y/cb/cr integer-valued
-    f32 (exact); products are double-float; the final store rounds once."""
-    y = y8.astype(F32)
-    cb = cb8.astype(F32) - F32(128.0)  # exact: integers
-    cr = cr8.astype(F32) - F32(128.0)
-    y_pair = (y, jnp.zeros_like(y))
-    r = df32.round_pair(df32.add(y_pair, df32.mul_const(cr, _K_RV)))
-    g = df32.round_pair(
-        df32.add(
-            df32.add(y_pair, df32.mul_const(cb, -_K_GU)),
-            df32.mul_const(cr, -_K_GV),
-        )
-    )
-    b = df32.round_pair(df32.add(y_pair, df32.mul_const(cb, _K_BU)))
-    return r, g, b
-
-
 def _ycbcr_channels_f32(y8, cb8, cr8):
     y = y8.astype(F32)
     cb = cb8.astype(F32) - F32(128.0)
@@ -152,8 +134,8 @@ def ycbcr_to_rgb(y8, cb8, cr8, exact: bool = True,
     make for the two G products. The f32 bit patterns differ on ~9% of
     inputs (1 ulp), but no differing pair ever straddles a trunc/round
     boundary — the bytes agree everywhere, so the cheap path IS the exact
-    path. (The df32 channel emulation remains for the YCCK composite below,
-    whose intermediate f32 values feed further arithmetic.)
+    path. (The YCCK composite below keeps the float64 statements, since
+    its intermediate f32 values feed further arithmetic.)
     """
     del exact  # proven byte-identical on the full input domain
     return _store_rgb(*_ycbcr_channels_f32(y8, cb8, cr8), quirks)
@@ -182,24 +164,29 @@ def ycck_to_rgb(y8, cb8, cr8, k8, exact: bool = True,
                 quirks: Quirks = Quirks.REFERENCE):
     """4-component YCCK composite (yccb_rgb, colour_conversion.c:85-162):
     YCbCr -> C/M/Y (f32 store), then 255 * (1 - X/255) * (K/255)."""
-    f = _ycbcr_channels_exact if exact else _ycbcr_channels_f32
-    c_, m_, ylw = f(y8, cb8, cr8)
-    k = k8.astype(F32)
-    if exact:
-        inv255 = 1.0 / 255.0  # f64(1/255); |df - f64 division| ~2^-53, below
-        # the 2^-48 emulation noise floor (see module docstring).
-        one = lambda x: df32.add(  # noqa: E731 — (1 - x/255) as a df pair
-            (jnp.ones_like(x), jnp.zeros_like(x)),
-            df32.mul_const(x, -inv255),
-        )
-        kk = df32.mul_const(k, inv255)
-        out = []
-        for ch in (c_, m_, ylw):
-            t = df32.mul(one(ch), kk)
-            out.append(df32.round_pair(df32.mul_const_pair_scale(t, 255.0)))
-        r, g, b = out
-    else:
+    if not exact:
+        c_, m_, ylw = _ycbcr_channels_f32(y8, cb8, cr8)
+        k = k8.astype(F32)
         r = F32(255.0) * (1.0 - c_ / 255.0) * (k / 255.0)
         g = F32(255.0) * (1.0 - m_ / 255.0) * (k / 255.0)
         b = F32(255.0) * (1.0 - ylw / 255.0) * (k / 255.0)
+        return _store_rgb(r, g, b, quirks)
+    st = f64.store
+    with f64.x64():
+        # Every statement as core/numerics.ycck_channels_to_rgb spells it:
+        # f64 compute, one f32 store (reduce_precision: the chain goes on
+        # in f64, see ops/f64.py).
+        y = y8.astype(f64.F64)
+        cb = cb8.astype(f64.F64) - 128.0
+        cr = cr8.astype(f64.F64) - 128.0
+        k = k8.astype(f64.F64)
+        cmy = (
+            st(y + f64.mul_const(cr, _K_RV)),
+            st(y - f64.mul_const(cb, _K_GU) - f64.mul_const(cr, _K_GV)),
+            st(y + f64.mul_const(cb, _K_BU)),
+        )
+        r, g, b = (
+            st(255.0 * (1.0 - ch / 255.0) * (k / 255.0)).astype(F32)
+            for ch in cmy
+        )
     return _store_rgb(r, g, b, quirks)

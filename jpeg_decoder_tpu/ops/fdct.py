@@ -4,10 +4,11 @@ The reference's encode path is a non-functional stub (its fast_2ddct
 overwrites its own results, /root/reference/src/dct.c:48-50; the driver does
 not compile, jpeg_encoder.c:35-46) — it contributes intent only
 (color-convert -> level-shift -> FDCT -> quantize -> zigzag, encode.c:12-74).
-This module implements that intent TPU-first:
+This module implements that intent as array programs:
 
-  * the 2-D FDCT of every block at once as [N, 64] @ [64, 64] matmuls (MXU),
-    with quantization folded into a per-table constant matrix;
+  * the 2-D FDCT of every block at once as [N, 64] @ [64, 64] float32
+    matmuls at Precision.HIGHEST (no TF32), with quantization folded into a
+    per-table constant matrix;
   * BT.601 forward color transform and box-filter chroma subsampling as
     fused elementwise/reduction programs;
   * all functions shape-polymorphic over the batch dimension, jit-friendly.
@@ -52,7 +53,7 @@ def fdct_quantize(blocks, qtable_natural):
     """[N, 64] raster uint8/f32 pixel blocks -> [N, 64] int32 zigzag
     quantized coefficients.
 
-    Level shift (-128, spec A.3.1), FDCT as one MXU matmul, then quantize
+    Level shift (-128, spec A.3.1), FDCT as one matmul, then quantize
     with round-half-away-from-zero (libjpeg's DESCALE convention).
     """
     qt = np.asarray(qtable_natural, dtype=np.float32)[ZIGZAG]  # zigzag order

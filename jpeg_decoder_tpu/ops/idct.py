@@ -9,12 +9,13 @@ contracts (utils/config.IdctPrecision):
 
   * EXACT   — replicates the C decoder's arithmetic bit-for-bit: each C
               statement's "f64 expression of f32 values, stored to f32" is
-              emulated with double-float (ops/df32.py). VPU elementwise; no
-              matmuls. Verified bitwise against core/numerics.idct_2d_exact.
+              evaluated in native float64 and rounded once to float32
+              (ops/f64.py). Elementwise; no matmuls. Verified bitwise against
+              core/numerics.idct_2d_exact.
   * FLOAT32 — the whole 2-D IDCT (with the AAN constants, row/col pre-scale
               and final 0.25 folded in) as ONE [N, 64] @ [64, 64] matmul in
-              float32 at Precision.HIGHEST — the MXU formulation. Within
-              +/-1 LSB of EXACT on the final uint8 (float rounding only).
+              float32 at Precision.HIGHEST (no TF32). Within +/-1 LSB of
+              EXACT on the final uint8 (float rounding only).
 
 Both paths end with the reference's output quantization: for 8-bit,
 trunc(0.25*x + 128) clamped to [0, 255] (dct.c:186-194, CLAMP macros
@@ -32,7 +33,7 @@ import jax.numpy as jnp
 
 from ..core.types import ZIGZAG, INV_ZIGZAG
 from ..utils.config import IdctPrecision
-from . import df32
+from . import f64
 
 F32 = jnp.float32
 
@@ -48,30 +49,34 @@ _C_D = 0.19509032201
 _C_OUT = _C_SQRT2 * 2  # folded output scale (dct.c:333-340)
 
 
-def _idct8_exact(v):
-    """One fast_idct_new pass (dct.c:296-341) over the last axis of f32 `v`,
-    each statement rounded exactly as the C rounds (see core/numerics.py for
-    the statement-by-statement model)."""
-    half = F32(0.5)  # *0.5 of an f32 is exact: plain f32 op == the C's f64 op
-    t0 = df32.round_mul_const(v[..., 0], _C_SQRT2)
-    t1 = v[..., 4]
-    t2 = v[..., 2]
-    t3 = v[..., 6]
-    t4 = half * (v[..., 1] - v[..., 7])
-    t5 = df32.round_mul_const(v[..., 3], _C_ISQRT2)
-    t6 = df32.round_mul_const(v[..., 5], _C_ISQRT2)
-    t7 = half * (v[..., 1] + v[..., 7])
+def _idct8_exact(v, axis: int):
+    """One fast_idct_new pass (dct.c:296-341) along `axis` of float32 `v`
+    [N, 8, 8], each statement rounded exactly as the C rounds (see
+    core/numerics.py for the statement-by-statement model): products in
+    float64 with one float32 store (ops/f64.py), the C's `float OP float`
+    in float32, and `* 0.5` of a float32 value, which is exact.
+
+    Passing the axis instead of transposing between the row and column
+    passes keeps XLA from fusing each pass into a transpose, where it
+    recomputed the butterfly per output element (PERF.md, PR 1)."""
+    half = F32(0.5)
+
+    def g(k):
+        return jax.lax.index_in_dim(v, k, axis, keepdims=False)
+
+    t0 = f64.round_mul_const(g(0), _C_SQRT2)
+    t1 = g(4)
+    t2 = g(2)
+    t3 = g(6)
+    t4 = half * (g(1) - g(7))
+    t5 = f64.round_mul_const(g(3), _C_ISQRT2)
+    t6 = f64.round_mul_const(g(5), _C_ISQRT2)
+    t7 = half * (g(1) + g(7))
 
     u0 = half * (t0 + t1)
     u1 = half * (t0 - t1)
-    u2 = df32.round_mul_const_pair(
-        df32.add(df32.mul_const(t2, _C_COS6), df32.mul_const(t3, -_C_SIN6)),
-        _C_ISQRT2,
-    )
-    u3 = df32.round_mul_const_pair(
-        df32.add(df32.mul_const(t2, _C_SIN6), df32.mul_const(t3, _C_COS6)),
-        _C_ISQRT2,
-    )
+    u2 = f64.round_mul_dot2_const(_C_ISQRT2, t2, _C_COS6, t3, -_C_SIN6)
+    u3 = f64.round_mul_dot2_const(_C_ISQRT2, t2, _C_SIN6, t3, _C_COS6)
     u4 = half * (t4 + t6)
     u5 = half * (-t5 + t7)
     u6 = half * (t4 - t6)
@@ -81,24 +86,14 @@ def _idct8_exact(v):
     w1 = half * (u1 + u2)
     w2 = half * (u1 - u2)
     w3 = half * (u0 - u3)
-    w4 = df32.round_dot2_const(u4, _C_A, u7, -_C_B)
-    w5 = df32.round_dot2_const(u5, _C_C, u6, -_C_D)
-    w6 = df32.round_dot2_const(u5, _C_D, u6, _C_C)
-    w7 = df32.round_dot2_const(u4, _C_B, u7, _C_A)
+    w4 = f64.round_dot2_const(u4, _C_A, u7, -_C_B)
+    w5 = f64.round_dot2_const(u5, _C_C, u6, -_C_D)
+    w6 = f64.round_dot2_const(u5, _C_D, u6, _C_C)
+    w7 = f64.round_dot2_const(u4, _C_B, u7, _C_A)
 
-    return jnp.stack(
-        [
-            df32.round_mul_const(w0 + w7, _C_OUT),
-            df32.round_mul_const(w1 + w6, _C_OUT),
-            df32.round_mul_const(w2 + w5, _C_OUT),
-            df32.round_mul_const(w3 + w4, _C_OUT),
-            df32.round_mul_const(w3 - w4, _C_OUT),
-            df32.round_mul_const(w2 - w5, _C_OUT),
-            df32.round_mul_const(w1 - w6, _C_OUT),
-            df32.round_mul_const(w0 - w7, _C_OUT),
-        ],
-        axis=-1,
-    )
+    outs = [w0 + w7, w1 + w6, w2 + w5, w3 + w4,
+            w3 - w4, w2 - w5, w1 - w6, w0 - w7]
+    return jnp.stack([f64.round_mul_const(o, _C_OUT) for o in outs], axis=axis)
 
 
 def _idct8_f64(v: np.ndarray) -> np.ndarray:
@@ -187,21 +182,28 @@ def dequantize_blocks(coeffs_zz, qtable_natural):
 
 
 def idct_exact(coeffs_zz, qtable_natural, bits12: bool = False):
-    """EXACT path: [N, 64] zigzag coeffs -> [N, 64] uint8 raster pixels."""
+    """EXACT path: [N, 64] zigzag coeffs -> [N, 64] uint8 raster pixels.
+
+    An optimization barrier closes the pre-scale and each pass, so XLA
+    materializes the float32 [N, 8, 8] block between them. That keeps each
+    pass in its own fusion (per-element recomputation of a fused butterfly
+    cost ~4x, PERF.md, PR 1), and every float32 value a float64 statement
+    reads then comes out of a barrier, never straight out of a float64 ->
+    float32 convert that XLA could fold away."""
+    barrier = jax.lax.optimization_barrier
     cdu = dequantize_blocks(coeffs_zz, qtable_natural).reshape(-1, 8, 8)
     # Row/col pre-scale (dct.c:164-167); [0,0] scaled twice.
-    cdu = cdu.at[:, 0, :].set(df32.round_mul_const(cdu[:, 0, :], _C_ISQRT2))
-    cdu = cdu.at[:, :, 0].set(df32.round_mul_const(cdu[:, :, 0], _C_ISQRT2))
-    cdu = _idct8_exact(cdu)  # row pass (dct.c:169-171)
-    cdu = jnp.swapaxes(cdu, 1, 2)  # transpose (dct.c:174-180)
-    cdu = _idct8_exact(cdu)  # column pass
-    cdu = jnp.swapaxes(cdu, 1, 2)
+    cdu = cdu.at[:, 0, :].set(f64.round_mul_const(cdu[:, 0, :], _C_ISQRT2))
+    cdu = cdu.at[:, :, 0].set(f64.round_mul_const(cdu[:, :, 0], _C_ISQRT2))
+    cdu = barrier(cdu)
+    cdu = barrier(_idct8_exact(cdu, axis=2))  # row pass (dct.c:169-171)
+    cdu = barrier(_idct8_exact(cdu, axis=1))  # column pass (dct.c:182-184)
     # 0.25 * f32 is exact — plain multiply reproduces the f64 scale.
     return _quantize_output(F32(0.25) * cdu, bits12).reshape(-1, 64)
 
 
 def idct_matmul(coeffs_zz, qtable_natural, bits12: bool = False):
-    """FLOAT32 path: the whole transform as one MXU matmul.
+    """FLOAT32 path: the whole transform as one float32 matmul.
 
     [N, 64] zigzag coeffs -> [N, 64] uint8 raster pixels. The dequant fold:
     zz[i] * qt[ZIGZAG[i]] scales row i of K, so at trace time the per-table
@@ -239,7 +241,7 @@ def idct_matrix_zz_scaled(k: int) -> np.ndarray:
 
     The reference decoder has no scaled decode — this is a capability the
     reference's users get from libjpeg's scale_num/8 API, provided here as
-    one MXU matmul per component.
+    one matmul per component.
     """
     if k not in (1, 2, 4, 8):
         raise ValueError(f"scaled IDCT supports k in {{1, 2, 4, 8}}, got {k}")

@@ -22,7 +22,7 @@ from jax.sharding import Mesh
 
 from ..models import decoder as decoder_mod
 from ..models.decoder import _stage_key, build_stage_raw, qt_by_comp_bytes
-from ..utils.config import DecodeConfig, EntropyBackend
+from ..utils.config import DecodeConfig
 from ..utils.errors import JpegFormatError
 from ..utils.metrics import GLOBAL_METRICS as metrics
 from ..io.parser import parse
@@ -61,16 +61,8 @@ class BatchDecoder:
         """Host stage for a batch of raw streams: (frame, planes, qts)
         triples via the FUSED path (cached header parse + one native
         prescan+decode call per image — decoder.host_decode), images
-        across host threads. The Pallas backend keeps the structure-based
-        route (its lane packing needs parsed scans)."""
+        across host threads."""
         workers = self.cfg.num_threads or os.cpu_count() or 1
-        if self.cfg.entropy_backend == EntropyBackend.PALLAS:
-            structures = [parse(d, self.cfg) for d in datas]
-            results = self._entropy_many_pallas(structures, workers)
-            return [
-                (s.frame, p, q)
-                for s, (p, q) in zip(structures, results)
-            ]
 
         def one(d):
             return decoder_mod.host_decode(d, self.cfg, self._pool)
@@ -80,51 +72,6 @@ class BatchDecoder:
                 return [one(d) for d in datas]
             with cf.ThreadPoolExecutor(max_workers=workers) as pool:
                 return list(pool.map(one, datas))
-
-    def _entropy_many_pallas(self, structures, workers):
-        """Device-resident entropy for the whole batch: every batchable
-        member's restart segments pack into shared G=8 Pallas invocations
-        (ops.entropy_pallas.entropy_decode_batch — lanes are image-agnostic,
-        so eight 135-segment 4K images fill 1080 of 1024+ lanes instead of
-        eight half-occupied kernels). Members the lockstep kernel cannot
-        hold (progressive, restart-free, oversized segments) fall back to
-        the native host path per image — honestly, not by failing the
-        batch."""
-        import dataclasses
-
-        from ..ops import entropy_pallas
-
-        results: list = [None] * len(structures)
-        batch_idx = [
-            i for i, s in enumerate(structures) if entropy_pallas.batchable(s)
-        ]
-        if batch_idx:
-            with metrics.timer("entropy_pallas_batch", items=len(batch_idx)):
-                outs = entropy_pallas.entropy_decode_batch(
-                    [structures[i] for i in batch_idx], self.cfg
-                )
-            for i, r in zip(batch_idx, outs):
-                results[i] = r
-        rest = [i for i in range(len(structures)) if results[i] is None]
-        if rest:
-            host_cfg = dataclasses.replace(
-                self.cfg, entropy_backend=EntropyBackend.NATIVE
-            )
-
-            def one(i):
-                s = structures[i]
-                planes = self._pool.acquire(s)
-                return i, decoder_mod._entropy_decode(s, host_cfg, planes)
-
-            with metrics.timer("entropy_batch_fallback", items=len(rest)):
-                if workers == 1 or len(rest) == 1:
-                    done = [one(i) for i in rest]
-                else:
-                    with cf.ThreadPoolExecutor(max_workers=workers) as pool:
-                        done = list(pool.map(one, rest))
-            for i, r in done:
-                results[i] = r
-        return results
 
     def decode_batch(self, datas: list[bytes]) -> np.ndarray:
         """Decode a batch of SAME-GEOMETRY JPEGs -> [B, H, W, 3] uint8."""

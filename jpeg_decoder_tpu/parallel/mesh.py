@@ -11,8 +11,10 @@ two named mesh axes:
                nearest-neighbor upsampling stripes need zero halo rows,
                with fancy upsampling one — colour_conversion.c:62-69).
 
-Collectives ride the mesh through jax.shard_map + psum/ppermute; on real
-hardware XLA lays them onto ICI.
+Collectives ride the mesh through jax.shard_map + psum/ppermute; on GPUs
+XLA hands them to NCCL. The device list is reshaped in order: every GPU of a
+host reaches every other at the same NVLink rate, so the mesh follows the
+algorithm alone.
 """
 
 from __future__ import annotations

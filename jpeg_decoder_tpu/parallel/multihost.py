@@ -4,15 +4,17 @@ The reference has no distributed anything (SURVEY.md §2); this engine
 scales across hosts with JAX's native runtime: `jax.distributed.initialize`
 brings every process into one system, `jax.devices()` becomes the GLOBAL
 device list, and the (data, stripe) mesh from parallel/mesh.py spans it.
-Collectives then ride ICI within a slice and DCN across hosts — laid out by
-XLA from the same shardings used single-host (nothing here changes the
-compute code; that is the point of the design).
+Collectives then ride the intra-host links (NVLink on GPUs) and the
+network across hosts — laid out by XLA from the same shardings used
+single-host (nothing here changes the compute code; that is the point of
+the design).
 
-Typical pod-slice launch (one process per host):
+Typical launch (one process per host; nothing discovers a GPU cluster, so
+the coordinator and ranks are given explicitly):
 
     from jpeg_decoder_tpu.parallel import multihost, mesh
-    multihost.initialize()                  # env-driven on TPU pods
-    m = mesh.make_mesh()                    # global mesh over all chips
+    multihost.initialize("host0:9876", num_processes=n, process_id=rank)
+    m = mesh.make_mesh()                    # global mesh over all devices
     bd = BatchDecoder(cfg, m)               # shard batches over every host
 
 CPU simulation (tests/test_multihost.py drives this with real separate
@@ -42,9 +44,10 @@ def initialize(
 ) -> None:
     """Join this process into the global JAX runtime.
 
-    On TPU pods all arguments are discovered from the environment; pass
-    them explicitly for CPU/GPU clusters or simulations. Safe to call once
-    per process, before any other jax API touches the backend.
+    Pass the arguments explicitly for GPU and CPU clusters and
+    simulations: nothing in a plain GPU machine's environment describes
+    the cluster. Safe to call once per process, before any other jax API
+    touches the backend.
     """
     global _initialized
     if _initialized:

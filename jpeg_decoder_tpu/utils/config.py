@@ -48,12 +48,11 @@ class Quirks(enum.Enum):
 class IdctPrecision(enum.Enum):
     """Numeric contract of the device IDCT.
 
-    EXACT   — emulate the reference's float32-storage/float64-compute
-              arithmetic with double-float (two-float) products so device
-              output matches the C decoder bit-for-bit (verified empirically
-              on the conformance corpus).
-    FLOAT32 — same dataflow in plain float32; ±1 LSB of the reference on a
-              tiny fraction of pixels, ~2x cheaper.
+    EXACT   — the reference's float32-storage/float64-compute arithmetic,
+              each C statement evaluated in native float64 and stored to
+              float32, so device output matches the C decoder bit-for-bit.
+    FLOAT32 — the IDCT as one float32 matrix product; ±1 LSB of the
+              reference on a small fraction of pixels.
     """
 
     EXACT = "exact"
@@ -67,16 +66,12 @@ class EntropyBackend(enum.Enum):
     NUMPY  — vectorized NumPy decoder (no native build required).
     ORACLE — the bit-serial NumPy oracle (slow; for conformance testing).
     DEVICE — on-device XLA while_loop decoder (correctness testbed).
-    PALLAS — on-device Mosaic lockstep kernel (ops/entropy_pallas.py): up
-             to 128 restart segments decode in hardware SIMD; the
-             compressed-bytes-in-HBM path.
     """
 
     NATIVE = "native"
     NUMPY = "numpy"
     ORACLE = "oracle"
     DEVICE = "device"
-    PALLAS = "pallas"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +81,7 @@ class DecodeConfig:
     quirks: Quirks = Quirks.REFERENCE
     idct_precision: IdctPrecision = IdctPrecision.EXACT
     entropy_backend: EntropyBackend = EntropyBackend.NATIVE
-    # Run dequant+IDCT+color on the TPU (False = all-host decode).
+    # Run dequant+IDCT+color on the accelerator (False = all-host decode).
     use_device: bool = True
     # Number of host threads for the native entropy stage (0 = all cores).
     num_threads: int = 0

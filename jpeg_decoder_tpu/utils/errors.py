@@ -1,4 +1,4 @@
-"""Structured error hierarchy for the TPU JPEG engine.
+"""Structured error hierarchy for the JPEG engine.
 
 Design note: the reference's failure handling is `return -1` bubbling plus two
 silent `exit(1)` calls in the progressive path (`/root/reference/src/decode.c:861,868`).

@@ -67,8 +67,7 @@ def test_12bit_parse_and_coefficients():
 
 @pytest.mark.parametrize(
     "backend", [EntropyBackend.ORACLE, EntropyBackend.NUMPY,
-                EntropyBackend.NATIVE, EntropyBackend.DEVICE,
-                pytest.param(EntropyBackend.PALLAS, marks=pytest.mark.slow)]
+                EntropyBackend.NATIVE, EntropyBackend.DEVICE]
 )
 def test_12bit_full_decode_all_backends(backend):
     data, blocks, qt = _make_12bit_gray()

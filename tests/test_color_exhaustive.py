@@ -13,7 +13,7 @@ check that the plain float32 arithmetic the device uses produces the same
 final uint8 as the f64 model for every input, under
 
   * both store quirks (REFERENCE truncate, CORRECT round-half-up), and
-  * every FMA-contraction choice XLA could make on TPU (a contracted
+  * every FMA-contraction choice XLA could make on a device (a contracted
     a*b+c rounds once; simulated exactly in f64, since the product of an
     f32 constant and a byte-valued f32 fits f64's 53-bit mantissa).
 

@@ -1,4 +1,4 @@
-"""Device kernel tests: df32 emulation, fused dequant+IDCT, color ops.
+"""Device kernel tests: float64 statements, fused dequant+IDCT, color ops.
 
 Each device op is validated against the bit-exact NumPy oracle numerics
 (core/numerics.py), which are themselves validated byte-for-byte against the
@@ -9,44 +9,39 @@ transitive agreement with the C decoder.
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from jpeg_decoder_tpu.core import numerics
 from jpeg_decoder_tpu.core.types import ZIGZAG, standard_luminance_qtable
 from jpeg_decoder_tpu.ops import color as color_ops
-from jpeg_decoder_tpu.ops import df32
+from jpeg_decoder_tpu.ops import f64
 from jpeg_decoder_tpu.ops import idct as idct_ops
 from jpeg_decoder_tpu.utils.config import IdctPrecision, Quirks
 
 
 # ---------------------------------------------------------------------------
-# df32 double-float emulation
+# float64 statement helpers (EXACT contract)
 # ---------------------------------------------------------------------------
 
 
-def _assert_f32_rounding(got, want, max_rate=2e-4):
-    """Double-float emulation is accurate to ~2^-48 relative; true
-    "round-to-f64 then round-to-f32" can differ by 1 ulp when the exact
-    value sits within 2^-48 of an f32 rounding midpoint (double rounding).
-    Certain rational constants (e.g. 1.402) hit such midpoints at ~1e-4
-    rate. Assert: never more than 1 ulp, and vanishingly rare."""
-    exact = got == want
-    if exact.all():
-        return
-    up = np.nextafter(want, np.float32(np.inf))
-    down = np.nextafter(want, -np.float32(np.inf))
-    assert np.all(exact | (got == up) | (got == down)), "diff exceeds 1 ulp"
-    rate = 1.0 - exact.mean()
-    assert rate <= max_rate, f"1-ulp mismatch rate {rate} too high"
+def _f64_statement(fn, *arrays):
+    """Run an ops/f64 statement helper jitted (so XLA may fuse) on float32
+    inputs, returning its float32 result."""
+    return np.asarray(jax.jit(fn)(*[jnp.asarray(a) for a in arrays]))
 
 
 class TestDf32:
+    """The float64 statement helpers (ops/f64.py) that replaced the
+    double-float emulation: one f64 evaluation, one f32 store, so they
+    match NumPy's f64-then-f32 model with no tolerance at all."""
+
     def test_round_mul_const_matches_f64(self, rng):
         x = rng.uniform(-4000, 4000, 20000).astype(np.float32)
         for c in (1.414213562, 0.707106781, -0.92387953251, 1.402, -0.71414):
             want = (np.float64(c) * x.astype(np.float64)).astype(np.float32)
-            got = np.asarray(df32.round_mul_const(jnp.asarray(x), c))
-            _assert_f32_rounding(got, want)
+            got = _f64_statement(lambda v: f64.round_mul_const(v, c), x)
+            np.testing.assert_array_equal(got, want)
 
     def test_round_dot2_matches_f64(self, rng):
         x = rng.uniform(-2000, 2000, 20000).astype(np.float32)
@@ -55,9 +50,9 @@ class TestDf32:
             0.8314696123 * x.astype(np.float64)
             + -0.55557023302 * y.astype(np.float64)
         ).astype(np.float32)
-        got = np.asarray(
-            df32.round_dot2_const(jnp.asarray(x), 0.8314696123,
-                                  jnp.asarray(y), -0.55557023302)
+        got = _f64_statement(
+            lambda a, b: f64.round_dot2_const(a, 0.8314696123, b, -0.55557023302),
+            x, y,
         )
         np.testing.assert_array_equal(got, want)
 
@@ -69,12 +64,52 @@ class TestDf32:
             * (0.38268343236 * t2.astype(np.float64)
                - 0.92387953251 * t3.astype(np.float64))
         ).astype(np.float32)
-        inner = df32.add(
-            df32.mul_const(jnp.asarray(t2), 0.38268343236),
-            df32.mul_const(jnp.asarray(t3), -0.92387953251),
+        got = _f64_statement(
+            lambda a, b: f64.round_mul_dot2_const(
+                0.707106781, a, 0.38268343236, b, -0.92387953251
+            ),
+            t2, t3,
         )
-        got = np.asarray(df32.round_mul_const_pair(inner, 0.707106781))
         np.testing.assert_array_equal(got, want)
+
+    def test_dot2_matches_f64_without_fusion(self, rng):
+        # The float64 sum itself, before the f32 store: bit-equal to the
+        # unfused round(round(cx*x) + round(cy*y)) even where the backend
+        # contracts multiply-adds (a fused form differs in the last f64
+        # bit on about half of these inputs).
+        x = rng.uniform(-2000, 2000, 20000).astype(np.float32)
+        y = rng.uniform(-2000, 2000, 20000).astype(np.float32)
+        want = (0.8314696123 * x.astype(np.float64)
+                + -0.55557023302 * y.astype(np.float64))
+        with f64.x64():
+            got = np.asarray(jax.jit(
+                lambda a, b: f64.dot2_const(
+                    a.astype(f64.F64), 0.8314696123,
+                    b.astype(f64.F64), -0.55557023302)
+            )(jnp.asarray(x), jnp.asarray(y)))
+        np.testing.assert_array_equal(got, want)
+
+    def test_split_const_is_exact(self):
+        for c in (1.414213562, 0.707106781, -0.92387953251, 1.402,
+                  0.8314696123, 255.0):
+            hi, lo = f64.split_const(c)
+            assert hi + lo == c
+            assert float(np.float64(hi) * (2.0 ** 29 / 2 ** np.floor(
+                np.log2(abs(hi))))).is_integer()
+
+    def test_store_matches_f32_cast(self, rng):
+        # reduce_precision to float32 == NumPy's float64 -> float32 cast,
+        # ties included (values built to sit exactly on f32 midpoints).
+        x = rng.uniform(-1e5, 1e5, 20000)
+        mid = (x.astype(np.float32).astype(np.float64)
+               + np.spacing(x.astype(np.float32)).astype(np.float64) / 2)
+        for v in (x, mid):
+            with f64.x64():
+                got = np.asarray(
+                    f64.store(jnp.asarray(v, dtype=jnp.float64))
+                    .astype(jnp.float32)
+                )
+            np.testing.assert_array_equal(got, v.astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -257,39 +292,6 @@ class TestColor:
         assert got.shape == (32, 32)
         # Interpolated values stay within the local min/max envelope.
         assert got.min() >= plane.min() and got.max() <= plane.max()
-
-
-# ---------------------------------------------------------------------------
-# Pallas fused kernel
-# ---------------------------------------------------------------------------
-
-
-class TestPallasIdct:
-    def test_matches_matmul_path(self, rng):
-        from jpeg_decoder_tpu.ops import pallas_kernels
-
-        qt = standard_luminance_qtable()
-        blocks = _random_blocks(rng, 1111)  # odd count: exercises padding
-        want = np.asarray(
-            idct_ops.idct_blocks(jnp.asarray(blocks), qt, IdctPrecision.FLOAT32)
-        )
-        got = np.asarray(
-            pallas_kernels.idct_pallas(jnp.asarray(blocks), qt, interpret=True)
-        )
-        np.testing.assert_array_equal(got, want)
-
-    def test_within_1lsb_of_exact(self, rng):
-        from jpeg_decoder_tpu.ops import pallas_kernels
-
-        qt = standard_luminance_qtable()
-        blocks = _random_blocks(rng, 512)
-        exact = np.asarray(
-            idct_ops.idct_blocks(jnp.asarray(blocks), qt, IdctPrecision.EXACT)
-        ).astype(np.int32)
-        got = np.asarray(
-            pallas_kernels.idct_pallas(jnp.asarray(blocks), qt, interpret=True)
-        ).astype(np.int32)
-        assert np.abs(got - exact).max() <= 1
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 a localhost coordinator, build a GLOBAL mesh spanning every process's CPU
 devices, and run the sharded decode stage on globally-distributed arrays.
 
-This is the CPU-mesh stand-in for an N-host TPU pod (SURVEY.md §4: multi-
-host logic must be testable without TPU hardware). Cases:
+This is the CPU-mesh stand-in for an N-host GPU cluster (SURVEY.md §4:
+multi-host logic must be testable without accelerator hardware). Cases:
 
   * test_multiprocess_global_mesh[2] / [4] — pure DP: the batched device
     stage sharded over the global "data" axis, output bit-compared to the

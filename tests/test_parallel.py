@@ -1,6 +1,6 @@
 """Multi-device tests on the virtual 8-device CPU mesh (conftest forces
 XLA_FLAGS=--xla_force_host_platform_device_count=8), validating the mesh /
-batch-DP / stripe-SP layers without TPU hardware (SURVEY.md §4)."""
+batch-DP / stripe-SP layers without accelerator hardware (SURVEY.md §4)."""
 
 import numpy as np
 import pytest
@@ -132,11 +132,11 @@ class TestStripes:
         got = stripes_mod.decode_striped(data, CFG, mesh_stripe8)
         np.testing.assert_array_equal(got, want)
 
-    @pytest.mark.parametrize("h", [123, 128, 200])
+    @pytest.mark.parametrize("h", [112, 123, 128, 200])
     def test_striped_arbitrary_height_420_fancy(self, mesh_stripe8, h):
         """Padded stripes must stay exact for BOTH upsampling rules at the
-        real bottom edge (the replicated padding row reproduces the fancy
-        rule's edge behavior)."""
+        real bottom edge. h=112 has no MCU padding inside the planes, so its
+        last output row reads the plane's last row's fancy edge."""
         from jpeg_decoder_tpu.utils.config import Quirks
 
         rng = np.random.default_rng(49)

@@ -90,7 +90,7 @@ def test_exotic_sampling_corruption_agreement():
     """Random exotic-sampling shapes under single-bit corruption: every
     backend that decodes successfully must produce bit-identical pixels,
     and clean decodes must agree with the oracle. (Scaled-down version of
-    the 120-shape soak recorded in docs/PERF.md; exercises the
+    the 120-shape soak recorded in PERF.md; exercises the
     _block_position/scan_layout wrap math on 411/440/mixed samplings.)"""
     from jpeg_decoder_tpu.io.parser import parse
     from jpeg_decoder_tpu.models import encoder
@@ -126,7 +126,7 @@ def test_exotic_sampling_corruption_agreement():
 
 
 @pytest.mark.parametrize(
-    "backend", [EntropyBackend.DEVICE, EntropyBackend.PALLAS],
+    "backend", [EntropyBackend.DEVICE],
     ids=lambda b: b.value,
 )
 @pytest.mark.slow  # corruption soak across device backends
@@ -151,7 +151,7 @@ def test_device_backends_corruption(backend):
 
 
 @pytest.mark.parametrize(
-    "backend", [EntropyBackend.DEVICE, EntropyBackend.PALLAS],
+    "backend", [EntropyBackend.DEVICE],
     ids=lambda b: b.value,
 )
 def test_device_backends_truncation_ladder(backend):

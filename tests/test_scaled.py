@@ -2,7 +2,7 @@
 
 The reference decoder has no scaled decode; this is a new capability built
 on the coefficient-plane IR: a k-point truncated IDCT (k = scale in
-{1, 2, 4}) produces a k x k pixel tile per 8x8 block as one MXU matmul
+{1, 2, 4}) produces a k x k pixel tile per 8x8 block as one matmul
 (ops/idct.idct_matrix_zz_scaled), so thumbnails never compute the
 full-resolution pixels. Oracles used here, in independence order:
 
